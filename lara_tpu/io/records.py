@@ -110,7 +110,7 @@ class InputStorage(list):
         # -j spreads it over worker PROCESSES (the sweep's many small
         # vector ops are GIL-bound, so threads measured slower; processes
         # measured 1.7x at 8x300nt and grow with family size).  Spawn
-        # context: forking after the TPU runtime initialised is unsafe.
+        # context: forking after the device runtime initialised is unsafe.
         # Only engages when the predicted work dwarfs the worker startup.
         need = [r for r in self
                 if predict_structures in ("builtin", None)
@@ -171,7 +171,7 @@ def _compute_structure(record: RnaRecord, log_scoring: bool, predict: Optional[s
     """Equivalent of ``computeStructure`` (``io.hpp:286-338``).
 
     The reference calls ViennaRNA ``pf_fold`` when a record has no structure
-    at all; lara-tpu optionally uses its built-in TPU McCaskill-style
+    at all; lara-tpu optionally uses its built-in McCaskill-style
     predictor (``predict == 'builtin'``), and otherwise raises, mirroring the
     reference's ``exit(1)`` when ViennaRNA is unavailable.
     """

@@ -110,8 +110,8 @@ def _get(mats: Dict[Pair, np.ndarray], s: int, t: int) -> np.ndarray | None:
 def extend_library(lib: Library, mats: Dict[Pair, np.ndarray]) -> Dict[Pair, np.ndarray]:
     """Triplet consistency extension: W'(s,t) += sum_u W(s,u) @ W(u,t),
     scaled so direct evidence keeps dominating (T-Coffee uses min over the
-    two path legs; the matmul form is its dense-batch equivalent and maps to
-    the MXU when run on device -- here NumPy BLAS)."""
+    two path legs; the matmul form is its dense-batch equivalent -- here
+    NumPy BLAS)."""
     extended: Dict[Pair, np.ndarray] = {}
     n = lib.n
     for (s, t), direct in mats.items():

@@ -1,8 +1,8 @@
 // Native per-pair Lagrange bookkeeping for the hybrid solver.
 //
 // The hybrid backend splits each subgradient iteration the way the hardware
-// wants: the O(L^2) batched alignment DP runs on the TPU (Pallas wavefront
-// kernel), while the sparse per-pair bookkeeping -- priority-queue maxima,
+// wants: the O(L^2) batched alignment DP runs on the device (the CUDA
+// wavefront kernel on a GPU), while the sparse per-pair bookkeeping -- priority-queue maxima,
 // subgradient extraction, greedy matching, dual updates, PSSM maintenance --
 // runs here in C++, touching only O(lines * partners) state per iteration
 // exactly like the reference (updateScores, /root/reference/src/

@@ -1,9 +1,11 @@
 """Batched anti-diagonal Gotoh affine-gap DP in JAX.
 
-TPU-first design: the O(L^2) DP is swept along anti-diagonals so each step is
-a pure vector operation over (batch, diagonal-offset) -- the reference's SIMD
-lanes (``subgradient_solver_simd.hpp``) become a real batch dimension, and
-the per-diagonal vectors map onto the VPU.  The score matrix is pre-skewed
+The O(L^2) DP is swept along anti-diagonals so each step is a pure vector
+operation over (batch, diagonal-offset) -- the reference's SIMD lanes
+(``subgradient_solver_simd.hpp``) become a real batch dimension.  This is
+the plain XLA path: it runs on the CPU and is the reference the GPU's CUDA
+kernel (:mod:`lara_tpu.ops.gotoh_cuda`) must equal.  The score matrix is
+pre-skewed
 into diagonal-major layout once per call so the scan body does no gathers,
 only shifts.
 
@@ -165,8 +167,9 @@ class Traceback(NamedTuple):
     n_lines: jax.Array    # [B]
     gap_score: jax.Array  # [B]
     partner: jax.Array    # [B, LA_MAX] dense line map: partner[a] = b or -1
-    # per-line seq-score sum, only when the Pallas traceback was handed the
-    # seq-score grid (the XLA path leaves it None and the solver reduces)
+    # sum of the seq scores over the matched cells, when the DP was handed
+    # the seq-score grid (gotoh_cuda.align fills it; the XLA traceback
+    # leaves it None)
     seq_part: jax.Array | None = None
 
 
@@ -237,8 +240,7 @@ def traceback(dirs, final_m, final_h, final_v, la, lb, go, ge,
     src = jnp.clip(k_idx + (lcap - cnt[:, None]), 0, lcap - 1)
     lines = jnp.take_along_axis(buf, src[:, :, None], axis=1)
     lines = jnp.where(k_idx[:, :, None] < cnt[:, None, None], lines, -1)
-    # dense per-position line map (what the Pallas traceback emits natively):
-    # the scatter is fine here -- this XLA walker is the non-TPU fallback
+    # dense per-position line map (what the CUDA kernel emits natively)
     partner = jnp.full((b, la_max + 1), -1, I32).at[
         lane[:, None], jnp.where(lines[:, :, 0] >= 0, lines[:, :, 0], la_max)
     ].set(lines[:, :, 1])[:, :la_max]
@@ -254,6 +256,17 @@ def align_pssm_batch(pssm, la, lb, go, ge, la_max: int, lb_max: int) -> Tracebac
     res = gotoh_scan(skewed, la, lb, go, ge, la_max, emit="dirs")
     return traceback(res.aux, res.final_m, res.final_h, res.final_v,
                      la, lb, go, ge, la_max, lb_max)
+
+
+def seq_part_dense(partner, seq_scores, lb_max: int):
+    """Sum of ``seq_scores`` ([B, LA, LB] or [B, LA*LB]) over the matched
+    cells of a dense partner map -- the lower bound's sequence term
+    (``lagrange.hpp:376-378``), which the CUDA kernel sums in its
+    traceback."""
+    b, la_max = partner.shape
+    pmask = partner[:, :, None] == jnp.arange(lb_max, dtype=I32)[None, None, :]
+    grid = jnp.asarray(seq_scores, I32).reshape(b, la_max, lb_max)
+    return jnp.sum(jnp.where(pmask, grid, 0), axis=(1, 2))
 
 
 def suffix_scan(sub_shifted, la, lb, go, ge, la_max: int):
@@ -406,11 +419,10 @@ def unskew_active_words(packed_np: np.ndarray, la_max: int, lb_max: int):
 
 
 def _sub_grid(submat, sa, sb):
-    """[B, LA, LB] substitution scores by exact one-hot MXU lookup: the
-    dense gather runs at ~7.5 ns/element on TPU (0.5 s per 16S batch
-    direction), the einsum at matmul speed.  f32 products of int-valued
-    operands < 2^24 are exact; HIGHEST precision keeps the MXU from
-    rounding through bf16."""
+    """[B, LA, LB] substitution scores by exact one-hot matmul lookup
+    (whether this beats the plain gather on the GPU is not measured).  f32
+    products of int-valued operands < 2^24 are exact; HIGHEST precision
+    keeps the matmul out of reduced-precision (TF32/bf16) arithmetic."""
     nk = submat.shape[0]
     ranks = jnp.arange(nk, dtype=I32)
     oh_a = (sa[:, :, None] == ranks).astype(jnp.float32)

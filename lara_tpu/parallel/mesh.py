@@ -2,8 +2,9 @@
 
 The reference's only parallelism is shared-memory threads + SIMD lanes over
 independent pairwise problems (SURVEY §2); there is nothing to communicate
-during a solve.  The TPU-native scaling story is therefore pure data
-parallelism over a 1-D device mesh:
+during a solve.  The multi-GPU scaling story is therefore pure data
+parallelism over a 1-D device mesh (every card reaches every other at the
+same rate, so the mesh follows the algorithm alone):
 
 * the batch dimension of :class:`~lara_tpu.solver.device_solver.BatchModel`
   is sharded over the ``pairs`` axis with ``jax.shard_map``,
@@ -15,8 +16,9 @@ parallelism over a 1-D device mesh:
   sorted library, preserving the reference's determinism guarantee
   (``io.hpp:372``, SURVEY §3.5).
 
-Multi-host pods extend this transparently: ``jax.distributed.initialize`` +
-the same mesh over all devices; each host feeds its addressable shard.
+Multi-host runs extend this transparently: ``jax.distributed.initialize``
++ the same mesh over each host's devices; each host feeds its addressable
+shard.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from lara_tpu.solver import device_solver
 
 
 def distributed_init() -> bool:
-    """Initialise ``jax.distributed`` for multi-host pods when the standard
-    coordinator environment is present (JAX_COORDINATOR_ADDRESS or the TPU
-    pod metadata jax reads natively).  Safe to call unconditionally: single
+    """Initialise ``jax.distributed`` for multi-host runs when the standard
+    coordinator environment is present (JAX_COORDINATOR_ADDRESS, with
+    JAX_NUM_PROCESSES and JAX_PROCESS_ID).  Safe to call unconditionally: single
     -host runs return False and proceed on local devices only.
 
     The reference's only cross-worker state is the merged, canonically
@@ -70,7 +72,7 @@ def process_pair_shard(pairs, process_id: int = None, process_count: int = None)
 
 def gather_results(local_entries, mesh: "Mesh" = None):
     """All-gather the per-pair result entries across hosts via one padded
-    device all_gather over ICI/DCN, then return every host's entries (each
+    device all_gather, then return every host's entries (each
     host can then merge into the canonically sorted library, preserving the
     reference's determinism guarantee regardless of scheduling).
 

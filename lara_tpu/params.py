@@ -13,9 +13,9 @@ Notes kept faithful to the reference:
 * ``-e`` is accepted but never read by either solver driver (dead parameter
   in the reference; convergence is exact bound equality,
   ``subgradient_solver.hpp:286``),
-* ``-j 0`` autodetects a worker count (``parameters.hpp:253-258``); on TPU
-  ``threads`` configures the host-side pipeline width, device batching is
-  controlled by ``batch``-related extras below,
+* ``-j 0`` autodetects a worker count (``parameters.hpp:253-258``); with the
+  device backend ``threads`` configures the host-side model-build width;
+  device batching is sized by the driver,
 * gap costs and the score matrix are converted to int32 fixed point at setup
   (``parameters.hpp:303-314``).
 
@@ -23,7 +23,7 @@ lara-tpu extensions (all optional, default off):
 ``--predict`` selects the structure predictor for structure-less records
 (default ``builtin``, mirroring the reference built with ViennaRNA) where the
 reference requires ViennaRNA; ``--backend {device,reference}`` selects the
-batched TPU solver or the NumPy scalar mirror; ``--precise-bpp`` disables the
+batched device solver or the NumPy scalar mirror; ``--precise-bpp`` disables the
 reference's int-truncation of contact probabilities.
 """
 
@@ -109,7 +109,7 @@ class Parameters:
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="lara-tpu",
-        description="Lagrangian Relaxed Alignment for RNA structures (TPU-native)",
+        description="Lagrangian Relaxed Alignment for RNA structures (batched on the GPU)",
     )
     parser.add_argument("--version", action="version", version=f"lara-tpu {VERSION}")
     parser.add_argument("-v", "--verbose", type=int, default=0, choices=range(0, 4),
@@ -170,7 +170,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "mirrors a ViennaRNA-less build (error on "
                              "structure-less input, io.hpp:332-336).")
     parser.add_argument("--backend", default="device", choices=("device", "reference"),
-                        help="device: batched TPU solver (default); "
+                        help="device: batched GPU solver (default); "
                              "reference: NumPy scalar mirror of the C++ driver.")
     parser.add_argument("--precise-bpp", action="store_true",
                         help="Keep fractional base-pair probabilities instead of the "

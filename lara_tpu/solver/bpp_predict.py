@@ -10,7 +10,7 @@ reference -- a CPU C library call per record, ``io.hpp:299-330``); it
 feeds the host model build, never the device hot loop, so the production
 path is a vectorized NumPy inside+outside sweep (strided diagonal views,
 float64), not an XLA program -- a compile-free O(n^3 + 500 n^2) pass
-beats paying a Mosaic/XLA compile for preprocessing.
+beats paying an XLA compile for preprocessing.
 
 Energy model (round 5 -- the full loop-based nearest-neighbour model)
 =====================================================================

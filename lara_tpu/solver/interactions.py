@@ -1,7 +1,7 @@
 """Host-side construction of the packed per-pair Lagrange model.
 
 The reference builds per-edge priority queues and hash maps
-(``/root/reference/src/lagrange.hpp:229-310``).  The TPU-native layout is a
+(``/root/reference/src/lagrange.hpp:229-310``).  The device layout is a
 flat array of *directed dual variables*: one entry per ordered pair of
 interacting alignment edges (l -> m), carrying
 

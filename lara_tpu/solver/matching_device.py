@@ -2,7 +2,8 @@
 
 Re-implements ``computeGreedyMatching`` + ``solveConflicts``
 (``/root/reference/src/matching.hpp:99-192``) as vectorized JAX control flow
-so the whole subgradient loop can stay inside one ``lax.while_loop`` on TPU:
+so the whole subgradient loop can stay inside one ``lax.while_loop`` on the
+device:
 
 * the sorted interaction queue becomes a 3-key ``lax.sort`` (weight desc,
   lineL asc, lineR asc -- the ``std::set<Interaction>`` order),
@@ -38,14 +39,6 @@ I32 = jnp.int32
 # lines * 2^18 in practice, like the reference's int32 ScoreType).
 I64 = jnp.int32
 
-
-def _use_pallas() -> bool:
-    """Mosaic rounds-loop kernel on TPU (LARA_NO_PALLAS=1 disables)."""
-    import os
-
-    if os.environ.get("LARA_NO_PALLAS"):
-        return False
-    return jax.default_backend() == "tpu"
 
 def _conflict_tables(lh: int) -> Tuple[np.ndarray, np.ndarray]:
     """Static pair enumeration in reference order: (0,1),(0,2),..,(1,2),..."""
@@ -279,10 +272,4 @@ def greedy_matching_queue(lq, mq, wq, live, line_edges,
     """
     b, d = lq.shape
     n_cand = jnp.sum(live, axis=1).astype(I32)
-    if _use_pallas():
-        from lara_tpu.solver.matching_pallas import rounds_loop_pallas
-
-        score, used = rounds_loop_pallas(
-            lq, mq, wq, live, line_edges, lookahead, d)
-        return RoundsResult(score=score, used_slot=used)
     return _rounds_loop(lq, mq, wq, live, line_edges, n_cand, lookahead, d)

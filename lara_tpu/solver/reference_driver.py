@@ -13,7 +13,7 @@ semantics of:
 
 The reference's SeqAn/LEMON submodules are not vendored, so the reference
 binary cannot be built; this mirror *is* the executable specification that
-the batched TPU backend is tested against.
+the batched device backend is tested against.
 
 Numeric policy notes (see :mod:`lara_tpu.types`):
 * all profits are int32 fixed point (x8192),

@@ -5,7 +5,7 @@ fixed point with a scale factor of 8192 (``/root/reference/src/data_types.hpp:66
 Floats enter the computation only at well-defined conversion points, always as
 C++ ``float`` (IEEE binary32) followed by an int conversion that truncates
 toward zero.  This module centralises those conversion rules so that every
-layer of lara-tpu (NumPy reference driver, JAX device solver, Pallas kernels)
+layer of lara-tpu (NumPy reference driver, JAX device solver, CUDA kernel)
 reproduces bit-identical integers.
 
 Conversion points replicated here:

@@ -1,4 +1,4 @@
-"""Phase timers: the TPU equivalent of the reference's hand-rolled phase
+"""Phase timers: the device-side equivalent of the reference's hand-rolled phase
 accounting (``/root/reference/src/subgradient_solver.hpp:199-203,335-351``
 accumulates align/matching/update wall time per thread under ``omp critical``
 and logs it at verbosity >= 1; ``src/lara.cpp:46,60`` reports total run

@@ -5,7 +5,7 @@ Run when mirror semantics intentionally change:
     LARA_SLOW=1 python tests/golden/make_full_depth_golden.py
 
 and commit the refreshed artifact together with the semantic change —
-``bench.py`` re-asserts it fatally on TPU hardware every round, and
+``bench.py`` and ``chip_smoke.py`` re-assert it fatally on the GPU, and
 ``tests/test_full_depth_parity.py`` re-asserts it under ``LARA_SLOW=1``.
 The pair (0, 2) is the slowest-converging pair of the bench 300nt family
 (500 iterations, bounds never meet).

@@ -116,7 +116,7 @@ def make_inputs() -> None:
 
 def make_goldens() -> None:
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
-    os.environ.setdefault("LARA_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from lara_tpu.app import run
     from lara_tpu.params import Parameters
 

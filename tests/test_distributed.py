@@ -34,8 +34,7 @@ def _base_env(n_local_devices: int) -> dict:
     env.pop("COORDINATOR_ADDRESS", None)
     env.pop("LARA_NO_DISTRIBUTED", None)
     env["JAX_PLATFORMS"] = "cpu"
-    env["LARA_PLATFORM"] = "cpu"
-    env["LARA_JAX_CACHE"] = "0"
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
     env["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={n_local_devices}"
     )
@@ -96,7 +95,7 @@ def test_two_process_run_matches_single_process(tmp_path):
 def test_three_process_empty_shards(tmp_path):
     """1 pair over 3 processes: two hosts get EMPTY shards and must still
     participate in the padded all-gather; process 0 writes the identical
-    library (VERDICT r4 item 7: the ragged edges of the distributed path)."""
+    library (the ragged edges of the distributed path)."""
     family = tmp_path / "pair.dbn"
     family.write_text(
         ">a\nGGGCGCAAGCCUUAAGGCGCCC\n(((((((......)))))))..\n"

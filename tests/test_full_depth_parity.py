@@ -5,9 +5,8 @@ budgets; late-trajectory divergence would pass them.  The golden artifact
 ``tests/golden/parity_300nt_full.json`` pins the scalar mirror's full-depth
 result on the slowest-converging bench pair (500 iterations, no convergence).
 The device run is slow on CPU (the fused loop at 320x320 for 500
-iterations), so it is gated behind ``LARA_SLOW=1``; the TPU benchmark
-harness runs the same comparison on hardware (recorded in the artifact's
-``device_verified`` field).
+iterations), so it is gated behind ``LARA_SLOW=1``; ``chip_smoke.py``
+runs the same comparison on the GPU.
 """
 
 import json
@@ -56,7 +55,7 @@ def test_full_depth_16s_native_matches_mirror():
     """Native C++ baseline vs NumPy mirror at 16S scale, FULL depth.
 
     Closes the chain behind bench.py's 16S gate: bench.py pins the 500-iter
-    device trajectory against the native baseline on TPU hardware; this test
+    device trajectory against the native baseline on the GPU; this test
     pins that same native baseline against the executable-spec mirror at the
     same scale and depth (the mirror is minutes-slow, hence LARA_SLOW).
     """

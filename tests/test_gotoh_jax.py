@@ -140,3 +140,79 @@ def test_edge_filter_skewed_words_matches_grid_path():
         # (edge_filter.hpp:141): the suffix scan's (0,0) aggregate equals
         # the forward optimum -- both live in the packed artifact
         assert np.array_equal(opt_new, np.asarray(opt_old))
+
+
+def _oracle_lane(pssm, la, lb):
+    score, lines, ga, gb = oracle.align_pssm(
+        pssm[:la, :lb].astype(np.int64), GO, GE)
+    return score, lines, oracle.evaluate_lines(ga, gb, GO, GE)
+
+
+@pytest.mark.parametrize("b, la_max, lb_max, seed", [
+    (4, 12, 10, 3),     # ragged lanes, degenerate 12x1 and 2x2 lanes
+    (33, 16, 16, 4),    # a batch wider than one 32-lane block
+    (3, 9, 40, 5),      # lb_max >> la_max: diagonals longer than a row
+])
+def test_align_shapes_match_oracle(b, la_max, lb_max, seed):
+    """Batch/width shapes the wavefront paths block differently, against
+    the scalar oracle lane by lane (dense partner map included)."""
+    rng = np.random.default_rng(seed)
+    las = rng.integers(1, la_max + 1, b)
+    lbs = rng.integers(1, lb_max + 1, b)
+    las[0], lbs[0] = la_max, lb_max
+    if b > 2:
+        las[1], lbs[1] = la_max, 1
+        las[2], lbs[2] = 2, 2
+    pssms = np.stack([random_pssm(rng, las[k], lbs[k], la_max, lb_max,
+                                  tie_prone=bool(k % 2)) for k in range(b)])
+    out = gotoh.align_pssm_batch(pssms, las, lbs, GO, GE, la_max, lb_max)
+    partner = np.asarray(out.partner)
+    for k in range(b):
+        score, lines, gap = _oracle_lane(pssms[k], las[k], lbs[k])
+        assert int(out.upper[k]) == score, f"lane {k}"
+        assert int(out.gap_score[k]) == gap, f"lane {k}"
+        want = np.full(la_max, -1)
+        for (a, p) in lines:
+            want[a] = p
+        np.testing.assert_array_equal(partner[k], want, err_msg=f"lane {k}")
+
+
+def test_seq_part_reduce_matches_oracle_lines():
+    """The solver's seq-score sum over matched cells (the lower bound's
+    sequence term, lagrange.hpp:376-378) == the oracle's line sum."""
+    from lara_tpu.ops import gotoh_cuda
+
+    rng = np.random.default_rng(11)
+    la_max, lb_max, b = 12, 10, 5
+    las = rng.integers(1, la_max + 1, b)
+    lbs = rng.integers(1, lb_max + 1, b)
+    pssms = np.stack([random_pssm(rng, las[k], lbs[k], la_max, lb_max, True)
+                      for k in range(b)])
+    seq = rng.integers(-5000, 5000, (b, la_max, lb_max)).astype(np.int32)
+    tb = gotoh_cuda.align(pssms, las, lbs, GO, GE, la_max, lb_max,
+                          seq_scores=seq.reshape(b, -1))
+    for k in range(b):
+        _score, lines, _gap = _oracle_lane(pssms[k], las[k], lbs[k])
+        assert int(tb.seq_part[k]) == sum(int(seq[k, a, p]) for a, p in lines)
+
+
+def test_preskewed_scan_and_traceback_match_oracle():
+    """The two stages on a once-skewed input (skew_scores -> gotoh_scan ->
+    traceback) reproduce the oracle, as align_pssm_batch composes them."""
+    rng = np.random.default_rng(12)
+    la_max, lb_max, b = 10, 13, 4
+    las = rng.integers(1, la_max + 1, b)
+    lbs = rng.integers(1, lb_max + 1, b)
+    pssms = np.stack([random_pssm(rng, las[k], lbs[k], la_max, lb_max)
+                      for k in range(b)])
+    skewed = gotoh.skew_scores(pssms, PSSM_INIT)
+    assert skewed.shape == (la_max + lb_max + 1, b, la_max + 1)
+    res = gotoh.gotoh_scan(skewed, las, lbs, GO, GE, la_max, emit="dirs")
+    tb = gotoh.traceback(res.aux, res.final_m, res.final_h, res.final_v,
+                         las, lbs, GO, GE, la_max, lb_max)
+    for k in range(b):
+        score, lines, gap = _oracle_lane(pssms[k], las[k], lbs[k])
+        n = int(tb.n_lines[k])
+        assert int(tb.upper[k]) == score
+        assert [tuple(x) for x in np.asarray(tb.lines[k][:n])] == lines
+        assert int(tb.gap_score[k]) == gap

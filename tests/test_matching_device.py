@@ -2,8 +2,8 @@
 
 All tests drive :func:`greedy_matching_queue` -- the path the production
 fused solver takes (``device_solver.py``): statically queue-ordered columns
-with a live mask.  On CPU it runs the XLA ``_rounds_loop``; the Pallas
-kernel is pinned to that loop separately in ``test_matching_pallas.py``.
+with a live mask, matched by the ``lax`` rounds loop ``_rounds_loop`` on
+every platform.
 """
 
 import numpy as np
@@ -38,7 +38,7 @@ def _mirror(lines, inter, lookahead):
 
 
 @pytest.mark.parametrize("lookahead", [1, 2, 5])
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", range(10))
 def test_queue_matching_matches_mirror(seed, lookahead):
     """Compacted queue-ordered columns (live prefix), fuzz vs the mirror."""
     rng = np.random.default_rng(seed * 10 + lookahead)
@@ -79,7 +79,7 @@ def test_queue_matching_matches_mirror(seed, lookahead):
         np.testing.assert_array_equal(used, want, err_msg=f"lane {k}")
 
 
-@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("seed", range(7))
 def test_queue_matching_sparse_live(seed):
     """Sparse live masks over queue-ordered columns -- the exact calling
     shape of the fused solver (dead columns interleaved, queue order kept)."""
@@ -144,7 +144,7 @@ def test_queue_matching_known_chain():
 # ---------------------------------------------------------------------------
 # width/boundary fuzz: the production queue path is full-width by
 # construction -- candidates beyond any historical compaction width
-# (VERDICT r1: "silent 512-candidate truncation") must be matched
+# (an early version silently truncated at 512 candidates) must be matched
 # ---------------------------------------------------------------------------
 
 
@@ -191,7 +191,7 @@ def _build_compact_case(rng, n_cand_target, dcap, lookahead, n_lines=72,
     return (w2, l_e, m_e, cand, line_edges, qrank), (score, want_used)
 
 
-@pytest.mark.parametrize("n_cand", [0, 37, 511, 512, 513, 2000])
+@pytest.mark.parametrize("n_cand", [0, 37, 511, 512, 513, 700, 2000])
 def test_queue_matching_boundary_counts(n_cand):
     """Bit-equality with the mirror across historical truncation widths."""
     rng = np.random.default_rng(n_cand + 3)

@@ -57,7 +57,7 @@ def _run_cli(args):
 
 
 def test_full_cli_8dev_matches_mirror(tmp_path):
-    """VERDICT r4 item 7: drive the REAL CLI entry end-to-end over the
+    """Drive the REAL CLI entry end-to-end over the
     8-virtual-device mesh and require the written .lib byte-identical to
     the scalar mirror (single-lane semantics)."""
     from tests.test_device_solver import write_family
